@@ -10,7 +10,7 @@ kdtree.py:18-25). This yields
 
 * a measured NumPy baseline on identical data (the reference README's table
   was recorded on unspecified hardware), and
-* direct final-transform parity between the TPU solvers and the reference.
+* direct final-transform parity between our solvers and the reference.
 
 Usage:  python benchmark/compare_reference.py [--n-map 1200000] [--n-scan 100000]
         (runs our solvers on whatever JAX backend is active)
@@ -65,6 +65,9 @@ def main():
                     "ray-cast LiDAR family (bench.make_lidar_map)")
     args = ap.parse_args()
 
+    from point_cloud_registration_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     import bench
 
     ref = import_reference()
@@ -194,13 +197,6 @@ def run_scene(ref, make_map, args):
     exact = np.abs(np.asarray(d_ours)[:, -1] - d_ref[:, -1]) < 1e-4
     print(f"k-NN (k=15) kth-distance exact fraction @50k sample (XLA path): {exact.mean():.4f}")
 
-    # the fused-kernel pipeline's own provable-exactness flag (radius-2 base
-    # + radius-4 tail tier), full map — kernel path only (None on CPU runs,
-    # where interpret mode at 1.2M would take hours)
-    _, info = est_dev(map_dev, k=15, backend="auto", return_info=True)
-    if info["exact"] is not None:
-        frac = float(np.asarray(jax.device_get(info["exact"])).mean())
-        print(f"k-NN provably-exact fraction, fused kernel + wide tail (full map): {frac:.4f}")
 
 
 if __name__ == "__main__":

@@ -1,13 +1,13 @@
-"""point_cloud_registration_tpu — TPU-native point-cloud registration.
+"""point_cloud_registration_tpu — point-cloud registration on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 scomup/point-cloud-registration (reference mounted at /root/reference): four
 rigid-registration solvers (point-to-point ICP, point-to-plane ICP,
 voxelized point-to-plane ICP, NDT) sharing one on-device Gauss-Newton loop on
 SE(3), plus the supporting geometry stack (voxel grids with per-voxel
 Gaussian statistics, grid-based nearest-neighbor search, PCA normal
 estimation, voxel downsampling, Caratheodory coresets) and data-parallel
-multi-chip execution via ``shard_map``.
+multi-device execution via ``shard_map``.
 
 The export list mirrors the reference public API
 (/root/reference/point_cloud_registration/__init__.py:1-10) item for item so

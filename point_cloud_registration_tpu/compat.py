@@ -5,7 +5,7 @@ reference's stateful surfaces — ``VoxelGrid`` (voxel.py:52-179) and the
 ``KDTree`` ``query(points, k) -> (dist, idx)`` contract (kdtree.py:18-68) —
 so reference scripts and tests port with an import change. The kd-tree
 *capability* is served by the voxel-grid engine (SURVEY §2.4: kd-trees are
-pointer-chasing and TPU-hostile); exactness caveats are on the class
+pointer-chasing and do not vectorize); exactness caveats are on the class
 docstrings.
 """
 

@@ -60,9 +60,6 @@ class ICPConfig:
     # data-independent query tiers for vmapped/batched execution, where
     # lax.switch would execute every branch per element anyway
     fixed_tiers: bool = False
-    # "auto": fused Pallas align kernel on TPU when tables permit; "xla"
-    # forces the gather-based path; "pallas" forces the kernel
-    backend: str = "auto"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +73,6 @@ class PlaneICPConfig:
     huber_delta: float | None = None
     corr: CorrespondenceConfig = CorrespondenceConfig()
     fixed_tiers: bool = False
-    backend: str = "auto"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +88,6 @@ class VPlaneICPConfig:
     # data-independent query tiers: set for vmapped/batched execution, where
     # lax.switch would execute every branch per element anyway
     fixed_tiers: bool = False
-    backend: str = "auto"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,4 +101,3 @@ class NDTConfig:
     min_points: int = 10
     huber_delta: float | None = None
     fixed_tiers: bool = False
-    backend: str = "auto"

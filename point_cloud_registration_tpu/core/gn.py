@@ -1,6 +1,6 @@
 """On-device Gauss-Newton driver for SE(3) registration.
 
-TPU re-design of the reference optimizer loop
+Device re-design of the reference optimizer loop
 (/root/reference/point_cloud_registration/registration.py:71-112): the Python
 ``for``-loop with a data-dependent ``break`` becomes a ``jax.lax.while_loop``
 whose carry holds the transform, so a full ``align`` — correspondence search,
@@ -19,7 +19,7 @@ Instead of printing per-iteration errors (registration.py:91-92) the driver
 returns a :class:`GNDiagnostics` struct with fixed-shape histories — the
 structured-observability replacement called for in SURVEY §5.
 
-Robustness: a singular 6x6 system must not take down a pod step, so a
+Robustness: a singular 6x6 system must not take down a batched step, so a
 non-finite ``dx`` terminates the loop with ``solver_failed`` set instead of
 propagating NaNs (the reference lets ``np.linalg.solve`` raise,
 registration.py:103).
@@ -41,7 +41,7 @@ class GNStats(NamedTuple):
     ``H`` is the 6x6 Gauss-Newton Hessian ``sum_i w_i J_i^T J_i``, ``g`` the
     gradient ``sum_i w_i J_i^T r_i``, ``e2`` the weighted squared error and
     ``n_inliers`` the number of gated correspondences (dist < max_dist).
-    Under data-parallel sharding these four are the *only* cross-chip traffic
+    Under data-parallel sharding these four are the *only* cross-device traffic
     (a ~40-float psum per iteration — SURVEY §2.3).
     """
 
@@ -78,15 +78,15 @@ class _Carry(NamedTuple):
 def solve_6x6(H: jax.Array, g: jax.Array) -> jax.Array:
     """Solve ``H dx = -g`` for the GN step (registration.py:103).
 
-    TPU-native design note: ``jnp.linalg.solve`` lowers to XLA's generic
-    batched LU whose inner matmuls run at TPU default precision — observed to
-    inject ~1e-2 noise into the step near convergence (the solver then
-    oscillates instead of hitting ``tol``). H is symmetric PSD by
-    construction, so we use a fully unrolled scalar Cholesky after Jacobi
-    (diagonal) scaling: exact float32 scalar arithmetic on the VPU, no matmul
-    path, negligible cost, and well-conditioned even though the translation
-    and rotation blocks differ by orders of magnitude. A singular H yields
-    NaNs, which the driver catches as ``solver_failed``.
+    Design note: ``jnp.linalg.solve`` lowers to a generic batched LU whose
+    inner matmuls run at the backend's default matmul precision, which may
+    truncate operands and inject noise into the step near convergence (the
+    solver then oscillates instead of hitting ``tol``). H is symmetric PSD
+    by construction, so this is a fully unrolled scalar Cholesky after
+    Jacobi (diagonal) scaling: exact float32 elementwise arithmetic, no
+    matmul path, negligible cost, and well-conditioned even though the
+    translation and rotation blocks differ by orders of magnitude. A
+    singular H yields NaNs, which the driver catches as ``solver_failed``.
     """
     d = jnp.diagonal(H)
     s = jax.lax.rsqrt(jnp.maximum(d, jnp.asarray(1e-30, H.dtype)))

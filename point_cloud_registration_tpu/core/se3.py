@@ -1,4 +1,4 @@
-"""SE(3)/SO(3) Lie-group math for the TPU registration stack.
+"""SE(3)/SO(3) Lie-group math for the registration stack.
 
 Functional parity target: the reference NumPy math kernel
 (/root/reference/point_cloud_registration/math_tools.py:15-127), re-designed for
@@ -11,7 +11,7 @@ Conventions
 * Transforms ``T`` are (4, 4) row-major homogeneous matrices.
 * A GN update ``dx`` is a 6-vector ``[t(3), omega(3)]`` — translation first,
   rotation second — matching the reference boxplus (math_tools.py:101-108).
-* Default dtype is float32 (TPU-native); float64 never appears on device.
+* Default dtype is float32; float64 never appears on device.
 """
 
 from __future__ import annotations
@@ -175,10 +175,10 @@ def transform_points(T: jax.Array, points: jax.Array) -> jax.Array:
     """Apply (..., 4, 4) transform to (..., N, 3) points (math_tools.py:111-113).
 
     Written as broadcast multiplies/adds rather than ``points @ R.T``: a tiny
-    K=3 matmul would route through the MXU at TPU-default (bfloat16-input)
-    precision, quantizing coordinates to ~8 mantissa bits — fatal for
-    registration residuals. The VPU form is exact float32 and equally fast
-    (the op is bandwidth-bound).
+    K=3 matmul at a backend's default precision may truncate its operands
+    (bfloat16 or TF32 inputs), quantizing coordinates — fatal for
+    registration residuals. The elementwise form is exact float32 and the
+    op is bandwidth-bound either way.
     """
     R, t = makeRt(T)
     x = points[..., 0:1] * R[..., None, :, 0] # broadcast over the point axis
@@ -190,7 +190,7 @@ def transform_points(T: jax.Array, points: jax.Array) -> jax.Array:
 def numerical_derivative(func, param, idx, plus_op=None, minus_op=None, delta=1e-5):
     """Finite-difference Jacobian checker (math_tools.py:116-127).
 
-    Host-side NumPy utility (test/debug only — never on the TPU compute path).
+    Host-side NumPy utility (test/debug only — never on the device compute path).
     ``func(*param)`` must return a 1-D array; the Jacobian is w.r.t.
     ``param[idx]`` perturbed through ``plus_op``.
     """

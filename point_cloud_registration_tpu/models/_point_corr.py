@@ -57,11 +57,8 @@ class PointCorrTarget(NamedTuple):
 
 
 def build_point_corr(points, corr: CorrespondenceConfig, max_dist: float,
-                     *, proxy_min_points: int = 1, proxy_normals: bool = False,
-                     feats=None) -> PointCorrTarget:
-    """``feats`` (N, F) rides inside the packed rows (one widened row
-    scatter, ~free) so the fused point kernel's tables carry per-point
-    features (PlaneICP normals) with no extra N-row pass."""
+                     *, proxy_min_points: int = 1,
+                     proxy_normals: bool = False) -> PointCorrTarget:
     raw = points  # keep the NumPy input for the host-side bounding box
     points = jnp.asarray(points, jnp.float32)
     method = corr.resolved_method(points.shape[0])
@@ -74,7 +71,6 @@ def build_point_corr(points, corr: CorrespondenceConfig, max_dist: float,
         pg, proxy = build_packed_grid_and_proxy(
             raw, cell_fine, cap=corr.packed_cap,
             min_points=proxy_min_points, with_normals=proxy_normals,
-            feats=feats,
         )
         return PointCorrTarget(points=points, packed=pg, proxy=proxy, grid=None, buckets=None)
     cell = corr.cell_size if corr.cell_size is not None else max_dist / 2

@@ -12,9 +12,9 @@ finds <= N_target points fast.
 This is deliberately host-side float64 NumPy: the elimination loop is
 inherently sequential tiny-SVD work (28 x 64 per step) where exactness — the
 whole point of the method (reference tests demand 1e-10) — requires double
-precision, which TPUs do not natively have. The TPU solver calls it between
-two jitted GN phases (see models/fast_vplane_icp.py); its cost is amortized
-over all remaining iterations.
+precision. The solver calls it between two jitted GN phases (see
+models/fast_vplane_icp.py); its cost is amortized over all remaining
+iterations.
 """
 
 from __future__ import annotations

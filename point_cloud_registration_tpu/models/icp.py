@@ -1,8 +1,8 @@
-"""Point-to-point ICP, TPU-native.
+"""Point-to-point ICP on the device.
 
 Objective ``sum_i || T p_i - q_i ||^2`` with kd-tree-gated nearest-neighbor
 correspondences — the reference solver at
-/root/reference/point_cloud_registration/icp.py:12-57. TPU re-design:
+point_cloud_registration/icp.py:12-57 of the reference. Re-design for XLA:
 
 * the target index is a CSR-bucketed voxel grid (cell = max_dist) instead of
   a kd-tree (icp.py:20-21); the 27-cell window provably covers the
@@ -28,13 +28,7 @@ from point_cloud_registration_tpu.models._point_corr import (
     build_point_corr,
     match_points,
 )
-from point_cloud_registration_tpu.models._fused import use_fused
-from point_cloud_registration_tpu.models._point_fused import (
-    fused_point_align,
-    target_fused_rows,
-)
-from point_cloud_registration_tpu.models.base import AlignResult, Registration, pad_points
-from point_cloud_registration_tpu.ops.pallas.point_align import point_fused_spec
+from point_cloud_registration_tpu.models.base import AlignResult, Registration
 from point_cloud_registration_tpu.ops.reduce import point_stats
 
 # The ICP target is the generic raw-point correspondence target.
@@ -81,29 +75,8 @@ class ICP(Registration):
 
     def set_target(self, target) -> None:
         self._target = build_icp_target(target, self.cfg)
-        # tq 128 / cb 512 because a SUBSAMPLED scan's Morton tiles are
-        # spatially huge — p99 distinct blocks per 128-query tile is ~490 on
-        # the B-01 protocol, and a key-list overflow floods the XLA fallback
-        # tiers every iteration (the round-3 regression: 98% of tiles
-        # overflowed at tq512/cb256). radius 1 keeps the in-kernel exactness
-        # radius at cell_fine (= max_dist / 4); beyond-radius queries resolve
-        # on the exact compacted fallback, which the hardware sweep measured
-        # at 4.6e-4 of the scan (r4 sweep: r1/tq128/cb512 152ms vs r2 170ms)
-        self._spec = point_fused_spec(
-            self._target.packed, "point", self.cfg.max_dist,
-            self.cfg.huber_delta, tq=128, cb=512, radius=1,
-        )
-        self._frows = target_fused_rows(self._spec, self._target.packed)
 
     def _align_fn(self, target, source, src_weight, init_T) -> AlignResult:
-        spec = getattr(self, "_spec", None)
-        if use_fused(self.cfg.backend, spec):
-            T, diag = fused_point_align(
-                target, None, source, src_weight, init_T, self.cfg, spec,
-                interpret=jax.default_backend() != "tpu",
-                frows=getattr(self, "_frows", None),
-            )
-            return AlignResult(T=T, diagnostics=diag)
         return icp_align(target, source, src_weight, init_T, self.cfg)
 
     def _stats_fn(self, target, source, src_weight, T) -> GNStats:

@@ -1,4 +1,4 @@
-"""NDT registration (Gauss-Newton on the Mahalanobis objective), TPU-native.
+"""NDT registration (Gauss-Newton on the Mahalanobis objective) on the device.
 
 Objective ``sum_i (T p_i - mu_i)^T Sigma_i^{-1} (T p_i - mu_i)`` against
 nearest-voxel Gaussians — the reference solver at
@@ -19,13 +19,7 @@ import jax.numpy as jnp
 from point_cloud_registration_tpu.core.config import NDTConfig
 from point_cloud_registration_tpu.core.gn import GNStats, gauss_newton
 from point_cloud_registration_tpu.core.se3 import makeRt, transform_points
-from point_cloud_registration_tpu.models._fused import (
-    fused_voxel_align,
-    scan_scaled_spec,
-    use_fused,
-)
 from point_cloud_registration_tpu.models.base import AlignResult, Registration
-from point_cloud_registration_tpu.ops.pallas.fused_align import voxel_fused_spec
 from point_cloud_registration_tpu.ops.reduce import ndt_stats
 from point_cloud_registration_tpu.ops.voxelize import (
     VoxelMap,
@@ -35,14 +29,9 @@ from point_cloud_registration_tpu.ops.voxelize import (
 
 
 def build_ndt_target(points, cfg: NDTConfig) -> VoxelMap:
-    """Voxel map with inverse covariances (``NDT.set_target``, ndt.py:18-22).
-
-    Dense-direct maps also get the planar sqrt-icov table for the fused
-    Pallas align kernel (whitened-residual form, see ops/pallas/fused_align).
-    """
+    """Voxel map with inverse covariances (``NDT.set_target``, ndt.py:18-22)."""
     return build_voxel_map(
         points, cfg.voxel_size, min_points=cfg.min_points, with_icov=True,
-        rich="sqrt_icov" if cfg.backend != "xla" else None,
     )
 
 
@@ -57,7 +46,7 @@ def build_ndt_target_deferred(points, cfg: NDTConfig, *, use_hint: bool = True):
 
     return build_voxel_map_deferred(
         points, cfg.voxel_size, min_points=cfg.min_points, with_icov=True,
-        rich="sqrt_icov" if cfg.backend != "xla" else None, use_hint=use_hint,
+        use_hint=use_hint,
     )
 
 
@@ -117,16 +106,10 @@ class NDT(Registration):
         self._target, self._pending_drop = build_ndt_target_deferred(
             target, self.cfg
         )
-        self._spec = voxel_fused_spec(
-            self._target, "ndt", self.cfg.max_dist, self.cfg.huber_delta
-        )
 
     def _rebuild_target_exact(self) -> None:
         self._target, _ = build_ndt_target_deferred(
             self._target_pts, self.cfg, use_hint=False
-        )
-        self._spec = voxel_fused_spec(
-            self._target, "ndt", self.cfg.max_dist, self.cfg.huber_delta
         )
 
     def update_target(self, target) -> None:
@@ -145,15 +128,6 @@ class NDT(Registration):
         return self._target
 
     def _align_fn(self, target, source, src_weight, init_T) -> AlignResult:
-        spec = scan_scaled_spec(
-            getattr(self, "_spec", None), int(source.shape[0])
-        )
-        if use_fused(self.cfg.backend, spec):
-            T, diag = fused_voxel_align(
-                target, source, src_weight, init_T, self.cfg, spec,
-                interpret=jax.default_backend() != "tpu",
-            )
-            return AlignResult(T=T, diagnostics=diag)
         return ndt_align(target, source, src_weight, init_T, self.cfg)
 
     def _stats_fn(self, target, source, src_weight, T) -> GNStats:

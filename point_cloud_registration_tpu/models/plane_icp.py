@@ -1,4 +1,4 @@
-"""Point-to-plane ICP, TPU-native.
+"""Point-to-plane ICP on the device.
 
 Objective ``sum_i (n_i^T (T p_i - q_i))^2`` against the target's k-NN PCA
 normals — the reference solver at
@@ -25,14 +25,8 @@ from point_cloud_registration_tpu.models._point_corr import (
     build_point_corr,
     match_points,
 )
-from point_cloud_registration_tpu.models._fused import use_fused
-from point_cloud_registration_tpu.models._point_fused import (
-    fused_point_align,
-    target_fused_rows,
-)
 from point_cloud_registration_tpu.models.base import AlignResult, Registration
 from point_cloud_registration_tpu.ops.normals import estimate_normals
-from point_cloud_registration_tpu.ops.pallas.point_align import point_fused_spec
 from point_cloud_registration_tpu.ops.reduce import plane_stats
 
 
@@ -52,11 +46,9 @@ def build_plane_icp_target(
     if normals is None:
         normals = estimate_normals(points, k=cfg.k)
     normals = jnp.asarray(normals, dtype=jnp.float32)
-    # the proxy tier serves voxel *planes*, so ask for enough points per
-    # voxel; normals ride inside the packed rows (feats) so the fused point
-    # kernel's tables carry them at no extra build cost
+    # the proxy tier serves voxel *planes*, so ask for enough points per voxel
     corr = build_point_corr(points, cfg.corr, cfg.max_dist, proxy_min_points=3,
-                            proxy_normals=True, feats=normals)
+                            proxy_normals=True)
     return PlaneICPTarget(corr=corr, normals=normals)
 
 
@@ -118,25 +110,8 @@ class PlaneICP(Registration):
         del kdree
         self._target = build_plane_icp_target(target, self.cfg, normals=norm)
         self.normal = self._target.normals  # attribute parity (plane_icp.py:23)
-        # radius 1 / tq 128 / cb 512: same hardware-swept winner as
-        # ICP.set_target (models/icp.py) — subsampled-scan tiles need the
-        # deep key lists; beyond-cell_fine queries ride the exact compacted
-        # fallback (~5e-4 of the scan on the B-01 protocol)
-        self._spec = point_fused_spec(
-            self._target.corr.packed, "plane_pt", self.cfg.max_dist,
-            self.cfg.huber_delta, tq=128, cb=512, radius=1,
-        )
-        self._frows = target_fused_rows(self._spec, self._target.corr.packed)
 
     def _align_fn(self, target, source, src_weight, init_T) -> AlignResult:
-        spec = getattr(self, "_spec", None)
-        if use_fused(self.cfg.backend, spec):
-            T, diag = fused_point_align(
-                target.corr, target.normals, source, src_weight, init_T,
-                self.cfg, spec, interpret=jax.default_backend() != "tpu",
-                frows=getattr(self, "_frows", None),
-            )
-            return AlignResult(T=T, diagnostics=diag)
         return plane_icp_align(target, source, src_weight, init_T, self.cfg)
 
     def _stats_fn(self, target, source, src_weight, T) -> GNStats:

@@ -19,13 +19,7 @@ import jax.numpy as jnp
 from point_cloud_registration_tpu.core.config import VPlaneICPConfig
 from point_cloud_registration_tpu.core.gn import GNStats, gauss_newton
 from point_cloud_registration_tpu.core.se3 import makeRt, transform_points
-from point_cloud_registration_tpu.models._fused import (
-    fused_voxel_align,
-    scan_scaled_spec,
-    use_fused,
-)
 from point_cloud_registration_tpu.models.base import AlignResult, Registration
-from point_cloud_registration_tpu.ops.pallas.fused_align import voxel_fused_spec
 from point_cloud_registration_tpu.ops.reduce import plane_stats
 from point_cloud_registration_tpu.ops.voxelize import (
     VoxelMap,
@@ -36,11 +30,9 @@ from point_cloud_registration_tpu.ops.voxelize import (
 
 def build_vplane_target(points, cfg: VPlaneICPConfig) -> VoxelMap:
     """Voxel map with Gaussian stats + normals (``VPlaneICP.set_target``,
-    voxelized_plane_icp.py:18-21). Dense-direct maps also get the planar
-    normal table that enables the fused Pallas align kernel."""
+    voxelized_plane_icp.py:18-21)."""
     return build_voxel_map(
         points, cfg.voxel_size, min_points=cfg.min_points, with_icov=False,
-        rich="normals" if cfg.backend != "xla" else None,
     )
 
 
@@ -56,8 +48,7 @@ def build_vplane_target_deferred(points, cfg: VPlaneICPConfig, *,
     )
 
     return build_voxel_map_deferred(
-        points, cfg.voxel_size, min_points=cfg.min_points,
-        rich="normals" if cfg.backend != "xla" else None, use_hint=use_hint,
+        points, cfg.voxel_size, min_points=cfg.min_points, use_hint=use_hint,
     )
 
 
@@ -119,16 +110,10 @@ class VPlaneICP(Registration):
         self._target, self._pending_drop = build_vplane_target_deferred(
             target, self.cfg
         )
-        self._spec = voxel_fused_spec(
-            self._target, "plane", self.cfg.max_dist, self.cfg.huber_delta
-        )
 
     def _rebuild_target_exact(self) -> None:
         self._target, _ = build_vplane_target_deferred(
             self._target_pts, self.cfg, use_hint=False
-        )
-        self._spec = voxel_fused_spec(
-            self._target, "plane", self.cfg.max_dist, self.cfg.huber_delta
         )
 
     def update_target(self, target) -> None:
@@ -149,15 +134,6 @@ class VPlaneICP(Registration):
         return self._target
 
     def _align_fn(self, target, source, src_weight, init_T) -> AlignResult:
-        spec = scan_scaled_spec(
-            getattr(self, "_spec", None), int(source.shape[0])
-        )
-        if use_fused(self.cfg.backend, spec):
-            T, diag = fused_voxel_align(
-                target, source, src_weight, init_T, self.cfg, spec,
-                interpret=jax.default_backend() != "tpu",
-            )
-            return AlignResult(T=T, diagnostics=diag)
         return vplane_align(target, source, src_weight, init_T, self.cfg)
 
     def _stats_fn(self, target, source, src_weight, T) -> GNStats:

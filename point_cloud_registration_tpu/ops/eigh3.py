@@ -3,22 +3,20 @@
 The reference leans on LAPACK for tiny fixed-size problems — ``np.linalg.eigh``
 over (N, 3, 3) covariance stacks for voxel normals
 (/root/reference/point_cloud_registration/voxel.py:157-158) and k-NN PCA
-normals (estimate_normals.py:76-77). On TPU those become host round-trips or
-slow generic QR loops, so this module computes eigenvalues analytically
-(trigonometric solution of the characteristic cubic, a la Smith 1961 / Eberly)
-and eigenvectors via spectral projectors — pure VPU element-wise math,
-batched over any leading shape, branchless.
+normals (estimate_normals.py:76-77). On the device those become host
+round-trips or generic iterative loops, so this module computes eigenvalues
+analytically (trigonometric solution of the characteristic cubic, a la Smith
+1961 / Eberly) and eigenvectors via spectral projectors — pure element-wise
+math, batched over any leading shape, branchless.
 
 Packed symmetric layout used throughout the framework: ``(..., 6)`` ordered
 ``[a00, a11, a22, a01, a02, a12]`` (diagonal first, then upper triangle).
 
-Layout note (TPU): every minor-dim slice ``s[..., i]`` of a packed ``(N, 6)``
-array is lane-strided — the (8, 128) tile pads dim 6 to 128 lanes, so six
-such reads re-read the padded array six times (a standalone 1.2M-row
-eigensolve measured 94 ms for ~60 flops/row). All internals therefore
-unpack ONCE via a single (..., 6) -> (6, ...) relayout and compute on
-contiguous per-component arrays (measured 14x faster standalone: 94 -> 6.6 ms; inside a
-fused build program XLA fuses either form, so the public API is unchanged).
+Layout note: every minor-dim slice ``s[..., i]`` of a packed ``(N, 6)``
+array is a strided read, so all internals unpack ONCE via a single
+(..., 6) -> (6, ...) transpose and compute on contiguous per-component
+arrays (inside a fused build program XLA fuses either form, so the public
+API is unchanged).
 """
 
 from __future__ import annotations
@@ -51,7 +49,7 @@ def unpack_sym3(s: jax.Array) -> jax.Array:
 
 
 def _unpack6(s: jax.Array):
-    """One (..., 6) -> (6, ...) relayout; components are contiguous."""
+    """One (..., 6) -> (6, ...) transpose; components are contiguous."""
     sT = jnp.moveaxis(s, -1, 0)
     return tuple(sT[i] for i in range(6))
 
@@ -121,7 +119,7 @@ def _projector_column_c(c, lam_a, lam_b):
     polynomials in A, so M is symmetric and its 6 distinct entries come from
     elementwise math over the component arrays (an ``einsum`` form
     materializing (..., 3, 3) stacks, and any per-column re-slicing of the
-    packed array, are lane-padded ~21-40x on TPU — see module docstring).
+    packed array, are strided reads — see module docstring).
     Returns the (vx, vy, vz) component tuple.
     """
     a00, a11, a22, a01, a02, a12 = c

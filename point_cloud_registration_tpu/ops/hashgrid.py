@@ -1,9 +1,9 @@
-"""Voxel-grid spatial index — the TPU-native replacement for the kd-tree.
+"""Voxel-grid spatial index — the device replacement for the kd-tree.
 
 The reference answers every neighbor query through pointer-chasing C/C++
 kd-trees behind a shim (/root/reference/point_cloud_registration/kdtree.py:18-65)
 and uses a spatial hash only to *group* points during voxel construction
-(voxel.py:12-21, :165). Pointer-chasing is TPU-hostile, so here the grid IS
+(voxel.py:12-21, :165). Pointer-chasing does not vectorize, so here the grid IS
 the index (SURVEY §2.4 item 1):
 
 * cells are absolute integer coordinates ``floor(p / cell_size)`` — identical

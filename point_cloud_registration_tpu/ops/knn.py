@@ -42,24 +42,18 @@ from point_cloud_registration_tpu.ops.hashgrid import (
 
 _BIG = np.float32(np.inf)  # numpy scalar: no backend init at import
 
-# Finite miss sentinel for tables that feed MXU one-hot gathers (a 0 x inf
-# product would poison the row with NaN). 1e30 squared overflows to inf, so
-# sentinel candidates can never win a distance comparison; "found" checks
-# must use `dist < FOUND_MAX` rather than isfinite.
+# Finite miss sentinel for empty block-table cells. 1e30 squared overflows to
+# inf, so sentinel candidates can never win a distance comparison.
 MISS_COORD = np.float32(1e30)
-FOUND_MAX = np.float32(1e14)
 
 
 def padded_row_width(n_floats: int) -> int:
-    """Round a planar block-row width up to the TPU lane tiling (128): DMA
-    slices of the table must be 128-aligned in the last dimension."""
+    """Round a planar block-row width up to a multiple of 128 floats."""
     return -(-n_floats // 128) * 128
 
 
 def padded_z_blocks(nbz: int) -> int:
-    """Round the z block count up to the sublane tiling (8): the fused
-    kernel's region DMA slices the z dimension fully, and Mosaic requires
-    the second-minor slice extent to be 8-aligned."""
+    """Round the z block count up to a multiple of 8."""
     return -(-nbz // 8) * 8
 
 
@@ -116,14 +110,9 @@ def nearest_voxel(
 
 
 # Cells per dense block along (x, y, z). A block is one gather row of
-# bx*by*bz*3 floats; bigger blocks cut gather-row count (the TPU bottleneck)
-# at the cost of distance math on a cell superset (VPU, nearly free).
-# (4, 8, 4): every axis span for the radius-2 window is 2, so the fused
-# Pallas kernel probes 8 blocks (vs 12 for the round-1 (4, 4, 2)), and
-# 4-cell z blocks quarter the z-padding waste of the kernel's
-# full-z-extent region DMA (nbz8 = 8 covers 32 z cells instead of
-# 16 x 2 = 32 covering the same 21 — the one-hot row space per region
-# drops from 1024 to 256 rows on the B-01-scale bench map).
+# bx*by*bz*3 floats; bigger blocks cut the gather-row count at the cost of
+# distance math on a cell superset. With (4, 8, 4) every axis span of the
+# radius-2 window is 2 blocks, so a full-window query probes 8 blocks.
 DENSE_BLOCK = (4, 8, 4)
 
 
@@ -155,12 +144,10 @@ def nearest_voxel_blocks(
     ``dense_blocks`` is (nby, nbz8, nbx, row_w) in *planar* layout —
     entry [bz, by, bx] holds that block's cell centroids as
     ``[x_0..x_{w-1}, y_0.., z_0..]`` (``MISS_COORD`` where empty/invalid/
-    out-of-grid; planar so the Pallas fused-align kernel can slice contiguous
-    component lanes from the same table). One fetched block row serves
-    bx*by*bz candidate cells, cutting the gather-row count — the TPU-side
-    bottleneck of this query — vs per-cell probing; the extra cells a block
-    window covers beyond the exact cell window only ever *improve* the
-    candidate set.
+    out-of-grid). One fetched block row serves bx*by*bz candidate cells,
+    cutting the gather-row count vs per-cell probing; the extra cells a
+    block window covers beyond the exact cell window only ever *improve*
+    the candidate set.
 
     Two-tier exactness: the near pass covers cell radius ``radius_near``; a
     query whose best distance is below ``radius_near * cell_size`` is
@@ -172,10 +159,10 @@ def nearest_voxel_blocks(
     """
     bx, by, bz = DENSE_BLOCK
     w = bx * by * bz
-    # table layout (nby, nbz8, nbx, row_w): z padded to the sublane tiling
-    # and second-minor so the fused kernel's region DMA can slice it fully
+    # table layout (nby, nbz8, nbx, row_w): z blocks padded to a multiple
+    # of 8, rows to a multiple of 128 floats
     nbz8 = dense_blocks.shape[1]
-    row_w = dense_blocks.shape[3]  # 3*w padded to the 128-lane tiling
+    row_w = dense_blocks.shape[3]
     flat_blocks = dense_blocks.reshape(-1, row_w)
     nbx, nby, nbz = nb_dims[0], nb_dims[1], nb_dims[2]
     gnx, gny = grid.dims[0], grid.dims[1]  # true cell-grid dims for final keys
@@ -276,7 +263,6 @@ def dense_blocks_from_dense(
     valid: jax.Array,
     dims_static: tuple[int, int, int],
     nb_dims_static: tuple[int, int, int],
-    feats: jax.Array | None = None,
 ) -> jax.Array:
     """Blocked planar table for a *dense-direct* map (slot == linear cell).
 
@@ -284,9 +270,8 @@ def dense_blocks_from_dense(
     builds), the blocked table is a pure permutation of the per-cell arrays:
     reshape cells to (nz, ny, nx), pad each axis to a block multiple, split
     into (block, intra-block) axes, and transpose to the planar row order.
-    One fused XLA copy (~tens of MB at HBM speed) replaces the per-component
-    row-bound scatters of :func:`build_dense_blocks` (~100 ns/row — the
-    round-1 set_target bottleneck). Same output layout/value contract as
+    One fused XLA copy replaces the per-component scatters of
+    :func:`build_dense_blocks`. Same output layout/value contract as
     :func:`build_dense_blocks`.
     """
     bx, by, bz = DENSE_BLOCK
@@ -294,7 +279,6 @@ def dense_blocks_from_dense(
     nbx, nby, nbz = nb_dims_static
     nbz8 = padded_z_blocks(nbz)
     w = bx * by * bz
-    coord_w = padded_row_width(3 * w)
 
     def to_blocks(vals, fill):
         # (d_total, K) cell values -> (nby, nbz8, nbx, K*w) planar rows
@@ -317,11 +301,7 @@ def dense_blocks_from_dense(
             )
         return a
 
-    coords = to_blocks(jnp.where(valid[:, None], means, MISS_COORD), MISS_COORD)
-    if feats is None:
-        return coords
-    fb = to_blocks(jnp.where(valid[:, None], feats, 0.0), 0.0)
-    return jnp.concatenate([coords, fb], axis=-1)
+    return to_blocks(jnp.where(valid[:, None], means, MISS_COORD), MISS_COORD)
 
 
 def build_dense_blocks(
@@ -329,27 +309,19 @@ def build_dense_blocks(
     means: jax.Array,
     valid: jax.Array,
     nb_dims_static: tuple[int, int, int],
-    feats: jax.Array | None = None,
 ) -> jax.Array:
     """(nby, nbz8, nbx, row_w) planar blocked table for
-    :func:`nearest_voxel_blocks` and the Pallas fused-align kernel.
+    :func:`nearest_voxel_blocks`.
 
-    Planar row layout: centroids ``[x_0..x_{w-1}, y_0.., z_0..]`` in the
-    first 128-lane group (structure-of-arrays, so component lanes are
-    contiguous slices of a fetched row), then — when ``feats`` is given —
-    per-cell features (plane normals or sqrt inverse covariances) planar at
-    column 128 onward. One merged row means ONE region DMA and one rich
-    fetch per kernel tile. Empty / invalid / out-of-grid cells hold
-    ``MISS_COORD`` coordinates (finite: the one-hot MXU gather would turn
-    0 x inf into NaN) and 0 features (never selected — sentinel candidates
-    cannot win the argmin). ``nb_dims_static`` are host ints (block grid
-    dims) because they size the array.
+    Planar row layout: centroids ``[x_0..x_{w-1}, y_0.., z_0..]``
+    (structure-of-arrays, so component lanes are contiguous slices of a
+    fetched row), padded to a multiple of 128 floats. Empty / invalid /
+    out-of-grid cells hold ``MISS_COORD``. ``nb_dims_static`` are host ints
+    (block grid dims) because they size the array.
     """
     bx, by, bz = DENSE_BLOCK
     w = bx * by * bz
-    coord_w = padded_row_width(3 * w)
-    f_dim = 0 if feats is None else feats.shape[1]
-    row_w = coord_w + (padded_row_width(w * f_dim) if f_dim else 0)
+    row_w = padded_row_width(3 * w)
     nbx, nby, nbz = nb_dims_static
     nbz8 = padded_z_blocks(nbz)
     nb = nbx * nby * nbz8
@@ -368,16 +340,11 @@ def build_dense_blocks(
     brow = ((cy // by) * nbz8 + (cz // bz)) * nbx + (cx // bx)
     col = (cx % bx) + bx * ((cy % by) + by * (cz % bz))
     flat_base = brow * row_w + col
-    if f_dim:
-        # MISS_COORD in the coordinate columns, 0 in the feature columns
-        col_in_row = jnp.arange(nb * row_w, dtype=jnp.int32) % row_w
-        table = jnp.where(col_in_row < coord_w, MISS_COORD, np.float32(0.0))
-    else:
-        table = jnp.full((nb * row_w,), MISS_COORD, jnp.float32)
+    table = jnp.full((nb * row_w,), MISS_COORD, jnp.float32)
     oob = jnp.int32(nb * row_w)  # dropped by the scatter
 
-    # Compact the valid slots before scattering: scatters are row-bound, and
-    # typically only ~15% of a dense-direct map's cells pass min_points.
+    # Compact the valid slots before scattering: typically only ~15% of a
+    # dense-direct map's cells pass min_points.
     c_rows = keys.shape[0]
     cap = min(max(c_rows // 4, 65536), c_rows)
     n_ok = jnp.sum(ok)
@@ -388,19 +355,12 @@ def build_dense_blocks(
         base_c = jnp.where(live, flat_base[sel], oob)
         for comp in range(3):
             table = table.at[base_c + comp * w].set(means[sel, comp], mode="drop")
-        for comp in range(f_dim):
-            table = table.at[base_c + coord_w + comp * w].set(
-                feats[sel, comp], mode="drop"
-            )
         return table
 
     def full(table):
         for comp in range(3):
             idx = jnp.where(ok, flat_base + comp * w, oob)
             table = table.at[idx].set(means[:, comp], mode="drop")
-        for comp in range(f_dim):
-            idx = jnp.where(ok, flat_base + coord_w + comp * w, oob)
-            table = table.at[idx].set(feats[:, comp], mode="drop")
         return table
 
     table = jax.lax.cond(n_ok <= cap, compacted, full, table)

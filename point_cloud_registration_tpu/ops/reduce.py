@@ -6,10 +6,10 @@ Each Gauss-Newton iteration collapses N per-point linearizations into the
 plane_icp.py:30-69, ndt.py:24-57); here the same closed forms are expressed
 as weighted, fixed-shape jnp reductions so XLA fuses the whole chain
 (transform -> residual -> Jacobian -> block reduction) into a handful of
-HBM-bandwidth-bound passes, with the dense 6xN @ Nx6 contractions landing on
-the MXU.
+memory-bandwidth-bound passes, with the dense 6xN @ Nx6 contractions as
+matrix products.
 
-The crucial TPU re-design: the reference *compacts* correspondences with a
+The crucial re-design: the reference *compacts* correspondences with a
 boolean mask (e.g. ``idx = idx[mask]``, icp.py:34-36) which is a dynamic
 shape. Dropping a row is mathematically identical to giving it weight 0 in
 the sums — exactly what the generic reducer (registration.py:62-68) already
@@ -26,9 +26,10 @@ from point_cloud_registration_tpu.core.gn import GNStats
 from point_cloud_registration_tpu.core.se3 import huber_weight, skew2, skew_time_vector
 from point_cloud_registration_tpu.ops.eigh3 import unpack_sym3
 
-# All small contractions run at HIGHEST precision: TPU-default matmuls feed
-# the MXU with bfloat16-truncated operands, which injects ~1e-2 relative noise
-# into H/g and stalls convergence near tol (observed on-chip; see core/gn.py).
+# All small contractions run at HIGHEST precision: default-precision float32
+# matmuls may truncate their operands (bfloat16 passes, or TF32 on tensor
+# cores), which injects up to ~1e-2 relative noise into H/g and stalls
+# convergence near tol (see core/gn.py).
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -95,7 +96,7 @@ def plane_stats(
 
     ``r = n^T (T p - mu)``, ``J = [n^T | (skew(p) R^T n)^T]``. The six
     Jacobian columns are assembled as one (N, 6) matrix so the block
-    reduction is a single MXU contraction.
+    reduction is a single matrix product.
     """
     diff = src_trans - means
     rs = jnp.sum(normals * diff, axis=-1)  # (N,)
@@ -156,50 +157,6 @@ def ndt_stats(
     return GNStats(
         H=_sym_block(H_ll, H_lr, H_rr), g=g, e2=e2, n_inliers=jnp.sum(weights)
     )
-
-
-def whitened_stats(
-    source: jax.Array,
-    src_trans: jax.Array,
-    means: jax.Array,
-    u6: jax.Array,
-    weights: jax.Array,
-    R: jax.Array,
-    huber_delta: float | None = None,
-) -> GNStats:
-    """Mahalanobis form via upper-triangular square roots ``U^T U = icov``.
-
-    Algebraically identical to :func:`ndt_stats` (``J~ = U J``, ``r~ = U d``
-    gives ``H = sum w J^T icov J`` etc.) but parameterized by the packed
-    ``[u00, u01, u02, u11, u12, u22]`` features the fused kernel's rich
-    table carries — used by its XLA fallback path.
-    """
-    d = src_trans - means  # (N, 3)
-    U = jnp.zeros((u6.shape[0], 3, 3), u6.dtype)
-    U = U.at[:, 0, 0].set(u6[:, 0]).at[:, 0, 1].set(u6[:, 1]).at[:, 0, 2].set(u6[:, 2])
-    U = U.at[:, 1, 1].set(u6[:, 3]).at[:, 1, 2].set(u6[:, 4]).at[:, 2, 2].set(u6[:, 5])
-    rt = jnp.einsum("nij,nj->ni", U, d, precision=_HI)  # whitened residual
-    if huber_delta is not None:
-        weights = weights * huber_weight(
-            jnp.sqrt(jnp.maximum(jnp.sum(rt * rt, axis=-1), 0.0)), huber_delta
-        )
-    # J = [I | -R skew(p)]; J~ = U J  -> (N, 3, 6)
-    Sp = jnp.stack(
-        [
-            jnp.stack([jnp.zeros_like(source[:, 0]), -source[:, 2], source[:, 1]], axis=-1),
-            jnp.stack([source[:, 2], jnp.zeros_like(source[:, 0]), -source[:, 0]], axis=-1),
-            jnp.stack([-source[:, 1], source[:, 0], jnp.zeros_like(source[:, 0])], axis=-1),
-        ],
-        axis=-2,
-    )
-    K = -jnp.einsum("ij,njk->nik", R, Sp, precision=_HI)
-    Jt = jnp.concatenate(
-        [U, jnp.einsum("nij,njk->nik", U, K, precision=_HI)], axis=-1
-    )  # (N, 3, 6)
-    H = jnp.einsum("nmi,nmj,n->ij", Jt, Jt, weights, precision=_HI)
-    g = jnp.einsum("nmi,nm,n->i", Jt, rt, weights, precision=_HI)
-    e2 = jnp.einsum("nm,nm,n->", rt, rt, weights, precision=_HI)
-    return GNStats(H=H, g=g, e2=e2, n_inliers=jnp.sum(weights))
 
 
 def reduce_H_g_e2(Js: jax.Array, rs: jax.Array, weights: jax.Array):

@@ -1,4 +1,4 @@
-"""Multi-chip / multi-host execution: runtime init, meshes, sharded align."""
+"""Multi-device / multi-host execution: runtime init, meshes, sharded align."""
 
 from point_cloud_registration_tpu.parallel import distributed
 from point_cloud_registration_tpu.parallel.map_sharded import (
@@ -12,7 +12,6 @@ from point_cloud_registration_tpu.parallel.map_sharded import (
 from point_cloud_registration_tpu.parallel.mesh import make_mesh
 from point_cloud_registration_tpu.parallel.sharded import (
     STATS_FNS,
-    align_batched_fused_sharded,
     align_batched_sharded,
     align_sharded,
 )

@@ -1,23 +1,24 @@
 """Multi-host runtime initialization.
 
 The reference is single-process (SURVEY §2.3: deps are numpy + pykdtree,
-no comm backend). The TPU framework scales across hosts with the standard
-JAX multi-controller runtime: every host runs the same program,
-``jax.distributed.initialize`` wires the slice together, and the existing
-``shard_map`` aligners then see the global device set — per-iteration traffic
-stays the ~40-float GN psum over ICI, with DCN touched only at startup
-(SURVEY §5 "distributed communication backend").
+no comm backend). This framework scales across hosts with the standard JAX
+multi-controller runtime: every host runs the same program,
+``jax.distributed.initialize`` wires the processes together, and the
+existing ``shard_map`` aligners then see the global device set —
+per-iteration traffic stays the ~40-float GN psum (SURVEY §5 "distributed
+communication backend").
 
-Typical pod-slice entrypoint::
+Typical entrypoint::
 
     from point_cloud_registration_tpu.parallel import distributed, make_mesh
 
-    distributed.initialize()              # env-driven on TPU pods
+    distributed.initialize("localhost:12345", num_processes=2, process_id=i)
     mesh = make_mesh(batch=jax.process_count(), data=...)
     ...
 
-On CPU test rigs pass coordinator/process args explicitly (see
-``jax.distributed.initialize`` docs).
+Pass the coordinator address, process count and process id explicitly
+unless the cluster environment lets ``jax.distributed.initialize`` discover
+them.
 """
 
 from __future__ import annotations
@@ -31,14 +32,11 @@ def initialize(coordinator_address: str | None = None,
                **kwargs) -> None:
     """Idempotent ``jax.distributed.initialize`` wrapper.
 
-    On Cloud TPU all arguments are discovered from the environment; passing
-    them explicitly supports CPU/GPU rigs and tests. Safe to call when the
-    runtime is already initialized (no-op) or single-process (no-op when no
-    coordinator can be inferred).
+    Safe to call when the runtime is already initialized (no-op) or
+    single-process (no-op when no coordinator can be inferred).
     """
-    state = getattr(jax._src.distributed, "global_state", None)
-    if state is not None and getattr(state, "client", None) is not None:
-        return  # already initialized
+    if jax.distributed.is_initialized():
+        return
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,

@@ -1,22 +1,21 @@
-"""Map-sharded alignment: voxel maps larger than one device's HBM.
+"""Map-sharded alignment: voxel maps larger than one device's memory.
 
 SURVEY §2.3's tensor-parallel row and the BASELINE north star mandate
 sharding "map voxel blocks" across chips. The reference has no distribution
-layer at all (its map is a kd-tree over voxel centroids,
-/root/reference/point_cloud_registration/voxel.py:165); the TPU design
+layer at all (its map is a kd-tree over voxel centroids, the reference's
+point_cloud_registration/voxel.py:165); this design
 shards the *dense-direct cell table* itself:
 
 * the global cell grid is split into ``n_shards`` equal z-slabs (z is the
   slowest axis of the linear cell key, so a slab is a contiguous row range
   of every per-cell array); each device holds one slab plus its own blocked
-  query table — per-device HBM is ``1/S`` of the map, so capacity scales
+  query table — per-device memory is ``1/S`` of the map, so capacity scales
   linearly with devices;
 * per GN iteration every device queries the (small, replicated or
   data-sharded) scan against its local slab, a ``pmin`` over the ``model``
   axis elects the globally nearest voxel (lowest-rank tie-break), and the
   winner-masked partial H/g/e² ``psum`` into the global normal equations —
-  two N-float collectives plus the ~40-float stats reduction per iteration,
-  all riding ICI;
+  two N-float collectives plus the ~40-float stats reduction per iteration;
 * correctness contract: identical (to f32) results to the replicated-map
   ``align_sharded`` path, asserted in tests/test_map_sharded.py. One
   degenerate exception: two voxels on *different* slabs at exactly equal
@@ -48,7 +47,6 @@ from point_cloud_registration_tpu.ops.voxelize import (
     _build_voxel_map_dense,
     dense_blocks_from_dense,
     query_nearest_voxel,
-    sqrt_icov_u6,
 )
 
 # numpy (not jnp): a module-level jnp constant would initialize the XLA
@@ -131,11 +129,10 @@ def shard_voxel_map(
 
     means_s = split(vm.means)
     valid_s = split(vm.valid)
-    feats_s = split(sqrt_icov_u6(vm.icovs) if with_icov else vm.normals)
     nb_slab = tuple(-(-d // b) for d, b in zip(meta.dims_slab, DENSE_BLOCK))
     blocks = jax.vmap(
-        lambda m, v, f: dense_blocks_from_dense(m, v, meta.dims_slab, nb_slab, f)
-    )(means_s, valid_s, feats_s)
+        lambda m, v: dense_blocks_from_dense(m, v, meta.dims_slab, nb_slab)
+    )(means_s, valid_s)
     return (
         ShardedVoxelMap(
             means=means_s,
@@ -167,10 +164,11 @@ def shard_voxel_map_on_mesh(
 ) -> tuple[ShardedVoxelMap, ShardedMapMeta]:
     """Build a slab-sharded voxel map DIRECTLY on the mesh: each device
     scatters the (replicated) points into its own slab's arrays, so no
-    global dense array ever exists on any device — per-device HBM is the
+    global dense array ever exists on any device — per-device memory is the
     slab plus the raw points, and map capacity scales linearly with the
     ``model`` axis. (Raw points are small next to a dense grid: 1.2M points
-    are 14 MB while their 1 m dense map with features is ~1 GB.)
+    are 14 MB while their 1 m dense map holds every cell of the bounding
+    box.)
 
     ``axis="auto"`` shards along the widest bbox axis, so slabs stay thick
     relative to ``max_dist`` (a query's window then overlaps at most two
@@ -207,10 +205,7 @@ def shard_voxel_map_on_mesh(
             with_icov=with_icov,
             with_normals=True,
         )
-        feats = sqrt_icov_u6(vm.icovs) if with_icov else vm.normals
-        blocks = dense_blocks_from_dense(
-            vm.means, vm.valid, dims_slab, nb_slab, feats
-        )
+        blocks = dense_blocks_from_dense(vm.means, vm.valid, dims_slab, nb_slab)
         add = lambda a: None if a is None else a[None]
         return ShardedVoxelMap(
             means=add(vm.means),

@@ -1,12 +1,12 @@
 """Sharded and batched alignment via ``shard_map`` + ``psum``.
 
-The TPU realization of SURVEY §2.3's mandated parallelism:
+The device realization of SURVEY §2.3's mandated parallelism:
 
 * **data parallel**: scan points are sharded over the mesh's ``data`` axis;
   every solver's per-iteration statistics (H, g, e2, n) are linear in the
   points, so a ``psum`` of the per-shard partial sums reconstructs the exact
-  single-chip normal equations. The whole Gauss-Newton ``while_loop`` runs
-  *inside* ``shard_map`` — each chip executes the identical trajectory after
+  single-device normal equations. The whole Gauss-Newton ``while_loop`` runs
+  *inside* ``shard_map`` — each device executes the identical trajectory after
   the all-reduce, so there is exactly one ~40-float collective per iteration
   and zero host round-trips.
 * **batch parallel**: ``vmap`` over (scan, init_T) problems within a shard,
@@ -78,108 +78,22 @@ def align_sharded(kind, target, source, src_weight, init_T, cfg, mesh: Mesh) -> 
     )(source, src_weight, init_T)
 
 
-@partial(jax.jit, static_argnames=("cfg", "spec", "mesh", "interpret"))
-def align_batched_fused_sharded(
-    target, normals, sources, src_weights, init_Ts, cfg, spec, mesh: Mesh,
-    interpret: bool = False,
-) -> AlignResult:
-    """Batched registration on the fused Pallas streams, problems sharded
-    over the mesh's ``batch`` axis.
-
-    The multi-chip twin of the single-chip fused batched drivers
-    (``models._fused.fused_voxel_align_batched`` /
-    ``models._point_fused.fused_point_align_batched``): the target map is
-    replicated, problems are split over ``batch``, and each chip runs the
-    whole fused stream — layout, tile tables, one kernel launch per GN
-    iteration — on its local problems. Problems are independent, so the
-    program needs ZERO collectives; scaling over the batch axis is
-    embarrassingly parallel (the production SLAM front-end layout,
-    BASELINE.json configs[4], vs the XLA-gather ``align_batched_sharded``
-    above which remains the route for maps without a fused spec).
-
-    Dispatch rides ``spec.kind``: ``"plane"``/``"ndt"`` take ``target`` as a
-    voxel map (``normals`` ignored), ``"point"``/``"plane_pt"`` take a
-    ``models._point_corr.PointCorrTarget`` plus the (N, 3) normal field for
-    ``plane_pt`` (used by the straggler fallback tier; ``None`` for
-    ``"point"``). ``target``/``normals`` are closed over, i.e. replicated to
-    every chip, exactly like ``align_sharded``'s target.
-
-    ``sources`` (B, n, 3) / ``src_weights`` (B, n) / ``init_Ts`` (B, 4, 4).
-    Problems are the ONLY parallel dimension here, so when B divides the
-    whole mesh (batch x data) the problem axis is sharded over every device;
-    otherwise it shards over ``batch`` alone and the ``data`` axis holds
-    duplicate replicas (legal — the same mesh may serve the point-sharding
-    XLA paths — but those chips do redundant work for THIS call). B must
-    divide at least the batch-axis size. Returns stacked results with
-    leading dim B.
-    """
-    from point_cloud_registration_tpu.models._fused import (
-        fused_voxel_align_batched,
-    )
-    from point_cloud_registration_tpu.models._point_fused import (
-        fused_point_align_batched,
-    )
-
-    nb = mesh.shape["batch"]
-    nd = mesh.shape.get("data", 1) if "data" in mesh.axis_names else 1
-    n_all = nb * nd
-    B = sources.shape[0]
-    if nd > 1 and B % n_all == 0:
-        axes = ("batch", "data")
-    elif B % nb == 0:
-        axes = ("batch",)
-    else:
-        raise ValueError(
-            f"batch {B} does not divide over {nb} batch shards "
-            f"(nor over all {n_all} devices)"
-        )
-
-    if spec.kind in ("plane", "ndt"):
-
-        def shard_fn(s, w, T0):
-            Ts, diag = fused_voxel_align_batched(
-                target, s, w, T0, cfg, spec, interpret=interpret
-            )
-            return AlignResult(T=Ts, diagnostics=diag)
-
-    else:  # "point" | "plane_pt"
-
-        def shard_fn(s, w, T0):
-            Ts, diag = fused_point_align_batched(
-                target, normals, s, w, T0, cfg, spec, interpret=interpret
-            )
-            return AlignResult(T=Ts, diagnostics=diag)
-
-    # check_vma=False: pallas_call's out_shape carries no varying-mesh-axes
-    # metadata, so vma tracking cannot cross the kernel boundary. Unlike the
-    # psum paths above (which keep the check), this program contains ZERO
-    # collectives — every problem is chip-local — so the check has nothing
-    # to validate here.
-    return jax.shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(P(axes), P(axes), P(axes)),
-        out_specs=P(axes),
-        check_vma=False,
-    )(sources, src_weights, init_Ts)
-
-
 @partial(jax.jit, static_argnames=("kind", "cfg", "mesh"))
 def align_batched_sharded(
     kind, target, sources, src_weights, init_Ts, cfg, mesh: Mesh
 ) -> AlignResult:
-    import dataclasses
-
-    if hasattr(cfg, "fixed_tiers") and not cfg.fixed_tiers:
-        # under vmap, data-dependent tier switching executes every branch per
-        # problem — force the data-independent variant
-        cfg = dataclasses.replace(cfg, fixed_tiers=True)
     """Batched multi-scan registration: problems sharded over ``batch``,
     each problem's points sharded over ``data``.
 
     ``sources``: (B, N, 3); ``src_weights``: (B, N); ``init_Ts``: (B, 4, 4).
     Returns stacked results with leading dim B.
     """
+    import dataclasses
+
+    if hasattr(cfg, "fixed_tiers") and not cfg.fixed_tiers:
+        # under vmap, data-dependent tier switching executes every branch per
+        # problem — force the data-independent variant
+        cfg = dataclasses.replace(cfg, fixed_tiers=True)
     stats_fn_kind = STATS_FNS[kind]
 
     def one(source_s, w_s, T0):

@@ -3,7 +3,7 @@
 Replaces the reference's commented-out ``time.time()`` breadcrumbs and ad-hoc
 prints (SURVEY §5: voxel.py:105-168, estimate_normals.py:38-84,
 registration.py:91-92) with a first-class phase timer and a ``jax.profiler``
-trace wrapper for TPU timeline capture.
+trace wrapper for device timeline capture.
 """
 
 from __future__ import annotations

@@ -1,18 +1,16 @@
 """Ground-truth ICP/PlaneICP accuracy per scene after the stratified-
 truncation fix, plus per-scene packed-grid truncation stats."""
+import os
 import sys
-import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-try:
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-except Exception:
-    pass
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+from point_cloud_registration_tpu.utils.runtime import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import bench  # noqa: E402
 import point_cloud_registration_tpu as pcr  # noqa: E402
 

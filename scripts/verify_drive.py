@@ -1,8 +1,9 @@
-"""End-to-end verify drive on the real TPU chip (.claude/skills/verify).
+"""End-to-end verify drive through the public API (.claude/skills/verify).
 
 Exercises the public API from a neutral cwd: all four solvers + FastVPlaneICP
 on a structured scene, the utility surface, and the failure probes. Prints
-PASS/FAIL per check and exits nonzero on any failure.
+PASS/FAIL per check and exits nonzero on any failure. Runs on whatever
+device JAX picks (``python chip_smoke.py`` is the checked GPU run).
 """
 import sys
 import time
@@ -11,13 +12,10 @@ import traceback
 import numpy as np
 
 import jax
-import jax.numpy as jnp
 
-try:  # persistent compile cache: repeat drives skip the 30-60 s/programs
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-except Exception:
-    pass
+from point_cloud_registration_tpu.utils.runtime import enable_compile_cache
+
+enable_compile_cache()
 
 import point_cloud_registration_tpu as pcr
 

@@ -2,7 +2,7 @@
 
 These are written from the algorithm definitions (see SURVEY.md §2/§3 and the
 reference file:line cites in each docstring) as straightforward float64
-NumPy — deliberately naive, loop-or-einsum style — so the TPU implementations
+NumPy — deliberately naive, loop-or-einsum style — so the device implementations
 can be checked against a second, independently-written realization of the same
 math. This mirrors the reference's own "fused vs naive" test pattern
 (tests/test_icp.py:20-38 in the reference).

@@ -41,12 +41,10 @@ def problem():
 def test_map_sharded_matches_replicated(problem, kind):
     scene, scan, _ = problem
     if kind == "vplane_icp":
-        cfg = VPlaneICPConfig(voxel_size=1.0, max_iter=30, max_dist=2.0, tol=1e-3,
-                              backend="xla")
+        cfg = VPlaneICPConfig(voxel_size=1.0, max_iter=30, max_dist=2.0, tol=1e-3)
         single = vplane_align(build_vplane_target(scene, cfg), *_args(scan), cfg)
     else:
-        cfg = NDTConfig(voxel_size=1.0, max_iter=30, max_dist=2.0, tol=1e-3,
-                        backend="xla")
+        cfg = NDTConfig(voxel_size=1.0, max_iter=30, max_dist=2.0, tol=1e-3)
         single = ndt_align(build_ndt_target(scene, cfg), *_args(scan), cfg)
 
     svm, meta = shard_voxel_map(
@@ -119,8 +117,7 @@ def test_map_sharded_large_scan_beyond_tier_capacity(problem):
     scan = scene[rng.choice(len(scene), n, replace=True)] + np.float32(
         [0.45, -0.3, 1.3]
     )
-    cfg = VPlaneICPConfig(voxel_size=1.0, max_iter=10, max_dist=2.0, tol=1e-3,
-                          backend="xla")
+    cfg = VPlaneICPConfig(voxel_size=1.0, max_iter=10, max_dist=2.0, tol=1e-3)
     single = vplane_align(build_vplane_target(scene, cfg), *_args(scan), cfg)
     svm, meta = shard_voxel_map(scene, 1.0, n_shards=4, min_points=cfg.min_points)
     mesh = make_map_mesh(model=4, data=2)
@@ -169,11 +166,10 @@ def test_on_mesh_auto_axis_align_matches_single(problem, kind):
     scene, scan, _ = problem
     if kind == "vplane_icp":
         cfg = VPlaneICPConfig(voxel_size=1.0, max_iter=30, max_dist=2.0,
-                              tol=1e-3, backend="xla")
+                              tol=1e-3)
         single = vplane_align(build_vplane_target(scene, cfg), *_args(scan), cfg)
     else:
-        cfg = NDTConfig(voxel_size=1.0, max_iter=30, max_dist=2.0, tol=1e-3,
-                        backend="xla")
+        cfg = NDTConfig(voxel_size=1.0, max_iter=30, max_dist=2.0, tol=1e-3)
         single = ndt_align(build_ndt_target(scene, cfg), *_args(scan), cfg)
     mesh = make_map_mesh(model=4, data=2)
     svm, meta = shard_voxel_map_on_mesh(
@@ -204,8 +200,7 @@ def test_on_mesh_skewed_scene_overflow_fallback(problem):
     scan = scene[sel][rng.choice(4000, 6000, replace=True)] + np.float32(
         [0.05, -0.03, 0.1]
     )
-    cfg = VPlaneICPConfig(voxel_size=1.0, max_iter=10, max_dist=2.0, tol=1e-3,
-                          backend="xla")
+    cfg = VPlaneICPConfig(voxel_size=1.0, max_iter=10, max_dist=2.0, tol=1e-3)
     single = vplane_align(build_vplane_target(scene, cfg), *_args(scan), cfg)
     mesh = make_map_mesh(model=8, data=1)
     svm, meta = shard_voxel_map_on_mesh(scene, 1.0, mesh, min_points=cfg.min_points)
@@ -232,7 +227,7 @@ def test_on_mesh_compacted_query_matches_single():
     scan = (scene[idx] + np.float32([0.06, -0.04, 0.09])
             + rng.randn(6000, 3).astype(np.float32) * 0.004).astype(np.float32)
     cfg = VPlaneICPConfig(voxel_size=1.0, max_iter=30, max_dist=2.0, tol=1e-3,
-                          min_points=3, backend="xla")
+                          min_points=3)
     single = vplane_align(build_vplane_target(scene, cfg), *_args(scan), cfg)
     mesh = make_map_mesh(model=8, data=1)
     svm, meta = shard_voxel_map_on_mesh(scene, 1.0, mesh, min_points=cfg.min_points)

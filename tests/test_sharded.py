@@ -1,7 +1,7 @@
 """Multi-device sharding tests on the virtual 8-device CPU mesh.
 
 Validates SURVEY §2.3's parallel design: data-sharded GN must be bitwise-
-equivalent in math (psum of partial sums) to the single-chip path, and the
+equivalent in math (psum of partial sums) to the single-device path, and the
 batched form must reproduce per-problem results.
 """
 
@@ -157,149 +157,70 @@ def test_batched_sharded_align(problem):
     assert np.abs(residual).max() < 0.05
 
 
-FUSED_KINDS = ["plane", "ndt", "point", "plane_pt"]
-
-
-@pytest.mark.parametrize("fkind", FUSED_KINDS)
-def test_batched_fused_sharded_matches_single_chip(problem, fkind):
-    """align_batched_fused_sharded (problems over the batch axis, fused
-    Pallas stream per shard) reproduces the single-chip fused batched
-    driver for every kernel kind — the zero-collective multi-chip
-    throughput path."""
-    from point_cloud_registration_tpu.core.config import CorrespondenceConfig
-    from point_cloud_registration_tpu.models._fused import (
-        fused_voxel_align_batched,
-    )
-    from point_cloud_registration_tpu.ops.pallas.fused_align import (
-        voxel_fused_spec,
-    )
-    from point_cloud_registration_tpu.models._point_fused import (
-        fused_point_align_batched,
-    )
-    from point_cloud_registration_tpu.ops.pallas.point_align import (
-        point_fused_spec,
-    )
-    from point_cloud_registration_tpu.ops.voxelize import build_voxel_map
-    from point_cloud_registration_tpu.parallel import align_batched_fused_sharded
-
-    scene, scan, _ = problem
-    rng = np.random.RandomState(7)
-    B, n = 2, 2000
-    scans = np.stack(
+def _distinct_scans(scene, B, n, seed):
+    """B scans of n points, each with its own offset from the scene."""
+    rng = np.random.RandomState(seed)
+    return np.stack(
         [
             scene[rng.choice(len(scene), n, replace=False)]
-            + np.float32([0.05 * (b + 1), -0.03, 0.08])
+            + np.float32([0.03 * (b + 1), -0.03, 0.08 - 0.02 * b])
             + rng.randn(n, 3).astype(np.float32) * 0.004
             for b in range(B)
         ]
     )
+
+
+@pytest.mark.parametrize("kind", list(SOLVERS))
+def test_batched_distinct_scans_match_per_problem(problem, kind):
+    """Problems over the batch axis, points over the data axis: each of B
+    distinct scans reproduces its own single-device align."""
+    scene, _, _ = problem
+    cfg, build, align = SOLVERS[kind]
+    target = build(scene, cfg)
+    B, n = 2, 2048
+    scans = _distinct_scans(scene, B, n, seed=7)
     weights = jnp.ones((B, n), jnp.float32)
     init_Ts = jnp.broadcast_to(jnp.eye(4, dtype=jnp.float32), (B, 4, 4))
-    packed = CorrespondenceConfig(method="packed")
-
-    normals = None
-    if fkind == "plane":
-        cfg = VPlaneICPConfig(voxel_size=1.0, max_iter=8, max_dist=2.0, tol=1e-3)
-        target = build_voxel_map(scene, 1.0, min_points=5, rich="normals")
-        spec = voxel_fused_spec(target, "plane", max_dist=cfg.max_dist, tq=256)
-    elif fkind == "ndt":
-        cfg = NDTConfig(voxel_size=1.0, max_iter=8, max_dist=2.0, tol=1e-3)
-        target = build_voxel_map(
-            scene, 1.0, min_points=5, with_icov=True, rich="sqrt_icov"
-        )
-        spec = voxel_fused_spec(target, "ndt", max_dist=cfg.max_dist, tq=256)
-    elif fkind == "point":
-        cfg = ICPConfig(corr=packed, max_iter=8, max_dist=2.0, tol=1e-3)
-        target = build_icp_target(scene, cfg)
-        spec = point_fused_spec(target.packed, "point", cfg.max_dist)
-    else:
-        cfg = PlaneICPConfig(corr=packed, max_iter=8, max_dist=2.0, tol=1e-3)
-        full = build_plane_icp_target(scene, cfg)
-        target, normals = full.corr, full.normals
-        spec = point_fused_spec(target.packed, "plane_pt", cfg.max_dist)
-    assert spec is not None
-
-    mesh = make_mesh(batch=2, data=4)
-    out = align_batched_fused_sharded(
-        target, normals, jnp.asarray(scans), weights, init_Ts, cfg, spec,
-        mesh, interpret=True,
+    out = align_batched_sharded(
+        kind, target, jnp.asarray(scans), weights, init_Ts, cfg, make_mesh(batch=2, data=4)
     )
-    if fkind in ("plane", "ndt"):
-        Ts1, diag1 = fused_voxel_align_batched(
-            target, jnp.asarray(scans), weights, init_Ts, cfg, spec,
-            interpret=True,
-        )
-    else:
-        Ts1, diag1 = fused_point_align_batched(
-            target, normals, jnp.asarray(scans), weights, init_Ts, cfg, spec,
-            interpret=True,
-        )
-    Ts_sh = np.asarray(jax.device_get(out.T))
-    assert Ts_sh.shape == (B, 4, 4)
-    np.testing.assert_allclose(Ts_sh, np.asarray(jax.device_get(Ts1)), atol=1e-5)
-    np.testing.assert_array_equal(
-        np.asarray(jax.device_get(out.diagnostics.iterations)),
-        np.asarray(jax.device_get(diag1.iterations)),
-    )
+    Ts = np.asarray(jax.device_get(out.T))
+    tol = 1e-5 if kind in ("vplane_icp", "ndt") else 1e-4  # see above
+    for b in range(B):
+        single = align(target, jnp.asarray(scans[b]), weights[b], init_Ts[b], cfg)
+        np.testing.assert_allclose(Ts[b], np.asarray(jax.device_get(single.T)), atol=tol)
 
 
-def test_batched_fused_sharded_full_mesh_fold(problem):
-    """When B divides the whole mesh, the problem axis shards over
-    batch x data — every device runs distinct problems (no idle data-axis
-    replicas) and the result equals the single-chip batched driver."""
-    from point_cloud_registration_tpu.models._fused import (
-        fused_voxel_align_batched,
-    )
-    from point_cloud_registration_tpu.ops.pallas.fused_align import voxel_fused_spec
-    from point_cloud_registration_tpu.ops.voxelize import build_voxel_map
-    from point_cloud_registration_tpu.parallel import align_batched_fused_sharded
-
-    scene, scan, _ = problem
-    rng = np.random.RandomState(3)
-    B, n = 8, 1000
-    scans = np.stack(
-        [
-            scene[rng.choice(len(scene), n, replace=False)]
-            + np.float32([0.02 * b, 0.01, -0.03])
-            for b in range(B)
-        ]
-    )
-    weights = jnp.ones((B, n), jnp.float32)
-    init_Ts = jnp.broadcast_to(jnp.eye(4, dtype=jnp.float32), (B, 4, 4))
+def test_batched_one_problem_per_device(problem):
+    """B = 8 problems on an (8, 1) mesh: every device runs its own problem
+    and each matches its single-device align."""
+    scene, _, _ = problem
     cfg = VPlaneICPConfig(voxel_size=1.0, max_iter=5, max_dist=2.0, tol=1e-3)
-    vm = build_voxel_map(scene, 1.0, min_points=5, rich="normals")
-    spec = voxel_fused_spec(vm, "plane", max_dist=cfg.max_dist, tq=256)
-    mesh = make_mesh(batch=2, data=4)
-    out = align_batched_fused_sharded(
-        vm, None, jnp.asarray(scans), weights, init_Ts, cfg, spec, mesh,
-        interpret=True,
+    target = build_vplane_target(scene, cfg)
+    B, n = 8, 1024
+    scans = jnp.asarray(_distinct_scans(scene, B, n, seed=3))
+    weights = jnp.ones((B, n), jnp.float32)
+    init_Ts = jnp.broadcast_to(jnp.eye(4, dtype=jnp.float32), (B, 4, 4))
+    out = align_batched_sharded(
+        "vplane_icp", target, scans, weights, init_Ts, cfg, make_mesh(batch=8, data=1)
     )
-    Ts1, _ = fused_voxel_align_batched(
-        vm, jnp.asarray(scans), weights, init_Ts, cfg, spec, interpret=True
-    )
-    np.testing.assert_allclose(
-        np.asarray(jax.device_get(out.T)),
-        np.asarray(jax.device_get(Ts1)),
-        atol=1e-5,
-    )
+    assert {s.device for s in out.T.addressable_shards} == set(jax.devices())
+    Ts = np.asarray(jax.device_get(out.T))
+    for b in range(B):
+        single = vplane_align(target, scans[b], weights[b], init_Ts[b], cfg)
+        np.testing.assert_allclose(Ts[b], np.asarray(jax.device_get(single.T)), atol=1e-5)
 
 
-def test_batched_fused_sharded_batch_mismatch(problem):
-    from point_cloud_registration_tpu.ops.pallas.fused_align import voxel_fused_spec
-    from point_cloud_registration_tpu.ops.voxelize import build_voxel_map
-    from point_cloud_registration_tpu.parallel import align_batched_fused_sharded
-
-    scene, scan, _ = problem
+def test_batched_batch_mismatch(problem):
+    scene, _, _ = problem
     cfg = VPlaneICPConfig(voxel_size=1.0, max_iter=4, max_dist=2.0, tol=1e-3)
-    vm = build_voxel_map(scene, 1.0, min_points=5, rich="normals")
-    spec = voxel_fused_spec(vm, "plane", max_dist=cfg.max_dist, tq=256)
-    mesh = make_mesh(batch=2, data=4)
+    target = build_vplane_target(scene, cfg)
     B, n = 3, 512  # 3 problems cannot split over 2 batch shards
-    with pytest.raises(ValueError, match="does not divide"):
-        align_batched_fused_sharded(
-            vm, None, jnp.zeros((B, n, 3)), jnp.ones((B, n)),
+    with pytest.raises(ValueError):
+        align_batched_sharded(
+            "vplane_icp", target, jnp.zeros((B, n, 3)), jnp.ones((B, n)),
             jnp.broadcast_to(jnp.eye(4, dtype=jnp.float32), (B, 4, 4)),
-            cfg, spec, mesh, interpret=True,
+            cfg, make_mesh(batch=2, data=4),
         )
 
 

@@ -202,11 +202,11 @@ def test_dense_blocks_transpose_matches_scatter(cloud):
         dense_blocks_from_dense,
     )
 
-    vm = voxelize.build_voxel_map(cloud, 1.0, min_points=10, rich="normals")
+    vm = voxelize.build_voxel_map(cloud, 1.0, min_points=10)
     dims = tuple(int(x) for x in jax.device_get(vm.grid.dims))
     nb = tuple(-(-d // b) for d, b in zip(dims, DENSE_BLOCK))
-    scatter = build_dense_blocks(vm.grid, vm.means, vm.valid, nb, vm.normals)
-    transpose = dense_blocks_from_dense(vm.means, vm.valid, dims, nb, vm.normals)
+    scatter = build_dense_blocks(vm.grid, vm.means, vm.valid, nb)
+    transpose = dense_blocks_from_dense(vm.means, vm.valid, dims, nb)
     np.testing.assert_array_equal(
         np.asarray(jax.device_get(scatter)), np.asarray(jax.device_get(transpose))
     )
